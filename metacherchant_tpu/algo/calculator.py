@@ -73,15 +73,11 @@ def create_picture(subgraph: dict[str, int], gene_sequences: list[str], k: int,
     graph, contract, emit seqs.fasta + graph.gfa + tsvs/.
 
     The device pointer-jumping contraction is OPT-IN (same policy as the
-    FMT pictures, algo/fmt.py): round 4 measured it winning 1.7x at 400K
-    k-mers, but the round-5 host optimizations (vectorized linking,
-    prefiltered merge, gc suspension) closed that gap (host 3.3-3.9 s vs
-    device 3.38 s + 0.8 s assembly at 400K, BENCH_NOTES), so there is no
-    default auto-route threshold -- set MC_DEVICE_CONTRACT=1 or an
-    explicit MC_DEVICE_CONTRACT_MIN. Environments stay on the
-    reference-faithful host sweep by default.
+    FMT pictures, algo/fmt.py; see contraction.use_device_contraction):
+    set MC_DEVICE_CONTRACT=1 or an explicit MC_DEVICE_CONTRACT_MIN.
+    Environments stay on the reference-faithful host sweep by default.
 
-    DOCUMENTED DIVERGENCE (ADVICE r4): the device route produces the same
+    DOCUMENTED DIVERGENCE: the device route produces the same
     unitig SET as the host sweep but may differ in seqs.fasta/graph.gfa/tsv
     record ORDER and per-unitig strand choice (both engines pick valid but
     different orientations). Graph topology, sequence content, LN/KC values

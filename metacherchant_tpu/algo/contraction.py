@@ -303,13 +303,11 @@ def gene_kmer_checker(gene_seqs: list[str], k: int) -> Callable[[str, str], bool
 def use_device_contraction(n_kmers: int, k: int) -> bool:
     """Shared device-contraction routing for FMT and per-gene pictures.
 
-    ROUND-5 DEMOTION (measured, BENCH_NOTES "contraction re-crossover"):
-    the r5 host optimizations (vectorized linking, prefiltered merge, gc
-    suspension) erased the device engine's r4 1.7x win -- at 400K k-mers
-    the host sweep runs 3.3-3.9 s vs device 3.38 s kernel + 0.8 s
-    assembly. Auto-routing therefore needs an EXPLICIT
-    MC_DEVICE_CONTRACT_MIN opt-in; MC_DEVICE_CONTRACT=1 still forces
-    (and =0 forces host). Device eligibility: exact regime, odd k <= 31.
+    The host sweep is the default: no crossover in favour of the device
+    engine has been measured on the GPU, so auto-routing needs an EXPLICIT
+    MC_DEVICE_CONTRACT_MIN opt-in; MC_DEVICE_CONTRACT=1 forces the device
+    engine (and =0 forces host). Device eligibility: exact regime, odd
+    k <= 31.
     """
     import os
     flag = os.environ.get("MC_DEVICE_CONTRACT")

@@ -1,6 +1,6 @@
 """Genomic-environment extraction: frontier BFS over the counted dBG.
 
-TPU-first redesign of the reference's string-keyed FIFO BFS
+Redesign of the reference's string-keyed FIFO BFS
 (src/algo/OneSequenceCalculator.java:137-262): k-mers are oriented 2-bit codes,
 a whole frontier expands per step (4 or 8 neighbor codes via bit ops), coverage
 probes are vectorized lookups into the sorted k-mer map, and dedup is an
@@ -258,27 +258,14 @@ def route_device_bfs(n_seeds: int, max_radius: int | None,
                      max_kmers: int | None, trim: bool) -> bool:
     """Engine routing: host FIFO (native C++ default) vs on-chip device BFS.
 
-    SETTLED BY MEASUREMENT, round 5 (scripts/profile_dense_bfs.py, real
-    chip, identical workloads, visited sets equal across all engines):
-
-      workload (radius 50)        host C++   dense device     probe device
-      A: 400K map,   4K seeds     0.148 s    3.57 s           4.88 s
-      B: 400K map,  65K seeds     0.242 s    2.51 s           --
-      C:   2M map, 500K seeds     1.41 s     6.56 s (+1.24 s  --
-                                             amortizable build)
-
-    Workload C IS the 500K-seed regime round 4's auto-route threshold
-    extrapolated to; measured, the host C++ FIFO still wins ~5.5x. The
-    dense engine (ops/bfs_dense.py: precomputed sort-merge-join adjacency +
-    bitmap layers, no probe loops) supersedes the probe engine everywhere
-    measured, but its per-layer cost is O(map) (~8.5 ns/candidate-lane
-    gather over 2N x 8 lanes), so saturating floods with straggler layers
-    still lose to the host's ~0.6 us/expansion on only-the-frontier. There
-    is NO realistic auto-route regime on this hardware class: the device
-    engines are DEMOTED to validated reference implementations (VERDICT r4
-    next-round #1, demotion arm). They remain the design basis for
-    multi-chip frontier sharding, where per-layer O(map/devices) changes
-    the economics.
+    The host C++ FIFO is the default. The dense device engine
+    (ops/bfs_dense.py: precomputed sort-merge-join adjacency + bitmap
+    layers, no probe loops) pays O(map) per layer, while the host pays only
+    for the frontier, so deep-narrow gene environments favour the host. No
+    crossover has been measured on the GPU yet, so the device engines are
+    opt-in and equality-pinned against the host engine; they are also the
+    design basis for multi-device frontier sharding, where per-layer
+    O(map/devices) changes the economics.
 
     Policy: MC_DEVICE_BFS=1 forces the device engine (when semantics
     allow -- MAX_KMERS/lastKmers are admission-order dependent and stay

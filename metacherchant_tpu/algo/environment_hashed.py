@@ -141,8 +141,8 @@ def build_environment_hashed(sequences: list[str], k: int, kmap: KmerMap,
         elif hasher == "poly":
             # scalar FIFO with O(1) sliding (fw, rc) hash updates -- 5 is odd,
             # hence invertible mod 2^64, so both left and right extensions
-            # slide; ~50x faster than layer batching on deep-narrow
-            # environments (see BENCH_NOTES.md)
+            # slide; far cheaper than layer batching on deep-narrow
+            # environments
             visited = _bfs_scalar_poly(seed_rows, kmap, k, min_occ,
                                        direction, max_radius, max_kmers, trim)
             union.update(visited)

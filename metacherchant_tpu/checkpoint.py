@@ -4,7 +4,7 @@ downstream tools.
 The reference's de-facto data checkpoint is the kmers.bin dump
 (src/io/IOUtils.java:39-65 + loader :94-126) plus the Tool framework's
 SUCCESS/in.properties stage skip (itmo:utils/tool/Tool.java:318-390; our
-tool.py implements that protocol). This module adds the TPU-era equivalent:
+tool.py implements that protocol). This module adds the multi-device equivalent:
 a sharded, manifest-carrying dump of the counted map so multi-host runs can
 persist/restore per-shard (keys, counts) without re-counting (SURVEY §5.4).
 """

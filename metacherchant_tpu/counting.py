@@ -1,12 +1,12 @@
 """K-mer counting drivers: stream reads -> device extraction -> device table.
 
-TPU-native redesign of the reference counting stack
+Device redesign of the reference counting stack
 (src/io/IOUtils.java:200-248 loadReads; src/io/ReadsDispatcher.java:34-53;
 src/io/LargeKIOUtils.java:40-88 hashed regime): instead of a thread pool
 mutating a striped shared map, reads are packed host-side into fixed-shape
 (B, L) code batches, canonical keys are extracted with one fused scan on
-device, and unique (key, count) pairs are aggregated into the HBM-resident
-open-addressing table. Long fragments are chunked with k-1 overlap so every
+device, and unique (key, count) pairs are aggregated into a device-resident
+store (a sorted key/count store by default, ops/sortcount.py). Long fragments are chunked with k-1 overlap so every
 window is represented exactly once.
 """
 from __future__ import annotations
@@ -132,8 +132,8 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
 
     engine: 'sort' (default; loop-free append + bulk-sort consolidation,
     ops/sortcount.py), 'merge' (per-batch small sorts + bitonic-merge
-    consolidation, ops/mergecount.py -- fastest on TPU), 'hash'
-    (open-addressing table, ops/hashtable.py), or 'sharded' (multi-chip).
+    consolidation, ops/mergecount.py), 'hash' (open-addressing table,
+    ops/hashtable.py), or 'sharded' (multi-device).
     Ingestion uses the native (C++) parser + vectorized packing per file when
     available, else the Python per-fragment readers.
     """
@@ -172,12 +172,11 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
                                  batch=batch, max_len=max_len)
         sink = lambda codes: counter.add_codes(np.asarray(codes))
     elif engine in ("sort", "chunk"):
-        # MC_SORT_BUF_LANES / MC_SORT_STORE_LANES pin raw lane counts so
-        # chip runs can hit persistently-cached consolidation shapes; unset
+        # MC_SORT_BUF_LANES / MC_SORT_STORE_LANES pin raw lane counts; unset
         # -> sized from table_log2 with buffer = 2^t - store, keeping
-        # buffer+store at an exact power of two (the consolidation sort2's
-        # lane count), so every store size reuses one cached sort2 shape
-        # per total (see bench.py GEOMETRY + scripts/profile_sort2_ceiling).
+        # buffer+store at an exact power of two (the consolidation's lane
+        # count), so every store size reuses one compiled consolidation
+        # shape per total.
         # 'chunk' = the same engine with multi-batch fused dispatch
         # (ops/sortcount.ChunkedStreamCounter): one extract+append call per
         # buffer fill, identical consolidation units and geometry.
@@ -211,8 +210,8 @@ def count_kmers_device(files: Iterable[str], k: int, hasher: str | None = None,
     buf: list[np.ndarray] = []
 
     # the chunk engine packs batches host-side before its fused dispatch, so
-    # hand it numpy directly (a jax->numpy round trip per batch would stall
-    # on this rig's readback path); every other engine gets device arrays
+    # hand it numpy directly (a jax->numpy round trip per batch would wait
+    # for the device); every other engine gets device arrays
     to_dev = (lambda x: x) if engine == "chunk" else jnp.asarray
 
     def flush():

@@ -1,7 +1,7 @@
 """Native (C++) host runtime components, loaded via ctypes.
 
 fastio: FASTA/FASTQ(.gz) parsing + 2-bit packing -- the host-side hot loop of
-read ingestion (the TPU analogue of the reference's reader/dispatcher stack,
+read ingestion (the counterpart of the reference's reader/dispatcher stack,
 src/io/ReadsDispatcher.java + itmo:io/readers/). Compiled on demand with the
 system toolchain and cached next to the source; every result is
 oracle-checked against the pure-Python readers in tests. BINQ and .bz2 stay

@@ -2,7 +2,7 @@
 //
 // The environment BFS is inherently sequential on deep-narrow gene graphs
 // (the wiki example runs ~93k layers at frontier <= 31), so the hot loop
-// belongs on the host, in native code -- the TPU analogue of the reference's
+// belongs on the host, in native code -- the counterpart of the reference's
 // Java String-keyed FIFO (src/algo/OneSequenceCalculator.java:198-239) with
 // the strings replaced by 2-bit packed codes (k <= 31) or byte rows + 64-bit
 // canonical hashes (k > 31). Semantics preserved exactly:

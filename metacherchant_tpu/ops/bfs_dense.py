@@ -1,18 +1,16 @@
 """Dense-frontier device BFS over a precomputed de Bruijn adjacency.
 
-The round-4 device engine (ops/bfs_device.py) probes an open-addressing
-table with data-dependent while_loop rounds of random HBM gathers
-(~54 ns/lane) EVERY layer and lost ~32x to the host C++ FIFO on its own
-showcase workload (VERDICT r4 missing #1). This engine applies the
-counting stack's lesson -- sequential/bulk beats random probing -- to the
-traversal itself:
+The probe engine (ops/bfs_device.py) probes an open-addressing table with
+data-dependent while_loop rounds of random gathers EVERY layer. This engine
+applies the counting stack's approach -- bulk sorts instead of random
+probing -- to the traversal itself:
 
 1. BUILD (once per count map): join the 8 neighbor candidates of every
    oriented k-mer in the map against the sorted key store with a
    sort-merge join, producing a dense integer adjacency `adj[(2N, 8)]`
    (oriented node id = 2*canonical_rank + orientation bit). The join is
-   two bulk 2-operand sorts per query group -- the SAME cached
-   (int64, int64) lax.sort executables the counting consolidation uses
+   two bulk 2-operand sorts per query group -- the same (int64, int64)
+   lax.sort unit the counting consolidation uses
    (ops/sortcount._sort2_kernel) -- plus native cummax/cumsum marking.
    No probing, no scatters.
 
@@ -141,13 +139,17 @@ def _assemble_adj(idx_flat: jax.Array, bit_flat: jax.Array, pad_id: int):
     return ids.reshape(-1, 8)
 
 
+#: largest join sort: 2^28 lanes of (int64, int64) is 4 GiB of operands,
+#: the largest two-operand sort measured on the card
+#: (scripts/profile_consolidate.py)
+JOIN_LANE_CAP = 1 << 28
+
+
 def _join_lane_budget(np_lanes: int) -> int:
-    """Total sort lanes for one join group: 8*Np puts mid-size maps on the
-    cached 2^22..2^24 counting sort2 shapes; maps at or above 2^24 padded
-    keys fall back to 2*Np (a 2^25 sort compiles on this rig,
-    scripts/profile_sort2_ceiling.py) so the budget always exceeds the
-    store and huge maps build instead of raising."""
-    total = min(8 * np_lanes, 1 << 24)
+    """Total sort lanes for one join group: 8*Np (three groups cover the
+    16*Np queries) up to JOIN_LANE_CAP; above it 2*Np, so the budget always
+    exceeds the store and huge maps build instead of raising."""
+    total = min(8 * np_lanes, JOIN_LANE_CAP)
     if total <= np_lanes:
         total = 2 * np_lanes
     return total
@@ -158,10 +160,8 @@ def _join_store(skeys_pad: jax.Array, qcanon: jax.Array, n_real: int,
     """Sort-merge join of all queries against the padded sorted store.
 
     Splits queries into groups of (total_lanes - Np) so every sort runs at
-    exactly `total_lanes` lanes -- pick a lane count the persistent cache
-    already holds (the counting geometries compile sort2 at 2^22..2^24,
-    scripts/profile_sort2_ceiling.py). Returns (len(qcanon),) int64 store
-    ranks, -1 for absent."""
+    exactly `total_lanes` lanes: one compiled sort for all groups. Returns
+    (len(qcanon),) int64 store ranks, -1 for absent."""
     from .sortcount import _sort2_kernel
     np_lanes = skeys_pad.shape[0]
     group = total_lanes - np_lanes
@@ -314,7 +314,6 @@ def run_dense_bfs(seed_codes: np.ndarray, kmap, k: int, min_occ: int,
     by a second pass: their eligible in-map neighbors are distance-1
     sources, and multi-source BFS with per-source budgets decomposes into a
     union of single-budget runs."""
-    from .sortcount import to_host
     if seed_codes.size == 0:
         return np.empty(0, np.int64)
     if min_occ < 0:
@@ -351,7 +350,7 @@ def run_dense_bfs(seed_codes: np.ndarray, kmap, k: int, min_occ: int,
                 v2, _, _ = dense_bfs(g.adj, elig, jnp.asarray(d2), mr2,
                                      direction)
                 visited = visited | v2
-    vh = to_host(visited)
+    vh = np.asarray(visited)
     ids = np.flatnonzero(vh)
     parts.append(g.ids_to_codes(ids))
     out = np.unique(np.concatenate(parts))

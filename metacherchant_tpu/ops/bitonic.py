@@ -1,11 +1,10 @@
 """Bitonic merge / compaction primitives built from elementwise XLA ops.
 
 XLA has no "merge two sorted arrays" primitive; its variadic `lax.sort` is the
-only bulk reordering op, and on this class of TPU runtime large fused sort
-graphs are both slow (~7 ms per 1M int64 lanes) and compile-hostile
-(BENCH_NOTES.md rig pathology #3).  Everything in this module is therefore
-built from *static-stride slices + elementwise selects* only -- the ops TPUs
-run at HBM speed and compilers never choke on:
+only bulk reordering op. Merging a sorted run into an already sorted store
+does not need a full sort, so everything in this module is built from
+*static-stride slices + elementwise selects* only -- memory-bound passes with
+no data-dependent addressing:
 
   bitonic_merge   log2(N) half-cleaner stages (reshape + min/max select)
   seg_totals      segmented per-run sums via a (flag, sum) associative scan
@@ -14,9 +13,9 @@ run at HBM speed and compilers never choke on:
                   before i is monotone with D[i']-D[i] <= i'-i-1 for real
                   elements, so per-bit shifting never collides)
 
-These power the MergeCounter engine (ops/mergecount.py): per-batch 1M-lane
-sorts (the one scale this rig compiles quickly) + cheap merges replace one
-giant fused sort, preserving the reference counting semantics
+These power the MergeCounter engine (ops/mergecount.py) and the merge-split
+consolidation of ops/sortcount.py: per-batch sorts + cheap merges replace one
+giant sort, preserving the reference counting semantics
 (canonical min(fw,rc) keys, saturating counts; itmo:structures/map/
 Long2ShortHashMap.java:119-157, itmo:utils/NumUtils.java:21-26).
 """

@@ -1,6 +1,6 @@
 """Unitig contraction as parallel pointer jumping (single device dispatch).
 
-TPU-scale replacement for the reference's repeated full-array merge sweeps
+Device replacement for the reference's repeated full-array merge sweeps
 (src/algo/OneSequenceCalculator.java:434-451 doMerge, O(sweeps * n) with
 pointer-chasing): the doubled-node graph over oriented k-mer codes is
 contracted with searchsorted adjacency + log-round pointer jumping.
@@ -135,9 +135,8 @@ def contract_device(kmers: list[str], k: int, tag_of=None,
     tags = np.asarray(tag_values, np.int32)
     U, utags, head, dist = contract_codes_device(
         jnp.asarray(codes), jnp.asarray(tags), k)
-    from .sortcount import to_host
-    U, utags = to_host(U), to_host(utags)
-    head, dist = to_host(head), to_host(dist)
+    U, utags = np.asarray(U), np.asarray(utags)
+    head, dist = np.asarray(head), np.asarray(dist)
 
     unitigs = assemble_unitigs(U, head, dist, k)
     id_of_tag = {v: t for t, v in tag_ids.items()}

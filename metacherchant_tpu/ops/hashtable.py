@@ -1,6 +1,6 @@
-"""HBM-resident open-addressing k-mer count table (functional JAX).
+"""Device-resident open-addressing k-mer count table (functional JAX).
 
-TPU-native replacement for the reference's striped concurrent hash map
+Replacement for the reference's striped concurrent hash map
 (itmo:structures/map/BigLong2ShortHashMap.java:62-253,
 itmo:structures/map/Long2ShortHashMap.java:76-157): the de Bruijn graph IS this
 map (canonical k-mer key -> saturating count). Java resolves contention with
@@ -12,11 +12,11 @@ vectorized probe rounds:
   back -- the one lane that sees its own key wins the slot, losers advance to
   the next slot (linear probing), repeat.
 
-Expected rounds ~ O(1/(1-load)); every round is pure gather/scatter over HBM.
+Expected rounds ~ O(1/(1-load)); every round is pure gather/scatter over
+device memory.
 
-Host<->device sync discipline: a synchronous scalar readback costs a full
-round-trip (pathological under a tunneled device), so the table NEVER syncs on
-the hot path. The live size is accumulated in a device scalar; the host tracks
+Host<->device sync discipline: a synchronous scalar readback stalls the host
+until the device drains its queue, so the table NEVER syncs on the hot path. The live size is accumulated in a device scalar; the host tracks
 a conservative upper bound (confirmed_size + batches_since_sync * batch) and
 only forces a sync when that bound approaches max_load, growing the table
 before an overflow can happen. Growth doubles capacity and re-inserts live
@@ -146,10 +146,8 @@ def _batch_unique_impl(keys_flat: jax.Array):
     Scatter-free: one sort, a cumsum, a cummax, and one gather. Unique keys
     are emitted IN PLACE at each run's last position (not compacted) -- every
     consumer (_insert_unique_impl, sharded _bucket_by_owner) is
-    position-agnostic over SENTINEL-padded lanes. TPU scatters (the lowering
-    of segment_sum/segment_max used previously) run ~10x slower than this at
-    the ~1M-key batch sizes this path sees (measured: 84ms vs 20ms per
-    4096x256-read batch on v5e)."""
+    position-agnostic over SENTINEL-padded lanes, and no scatter (the
+    lowering of segment_sum/segment_max) is needed."""
     n = keys_flat.shape[0]
     s = jnp.sort(keys_flat)
     first = jnp.concatenate([jnp.ones((1,), bool), s[1:] != s[:-1]])
@@ -195,9 +193,9 @@ class DeviceHashTable:
         """One-shot build of a read-only device table from a KmerMap."""
         import numpy as np
         n = max(len(kmap), 1)
-        # load 0.25: probe rounds are the dominant BFS layer cost
-        # (random gathers, BENCH_NOTES r4); halving the load nearly
-        # halves the while_loop's worst-lane round count
+        # load 0.25: probe rounds (random gathers) are the dominant BFS
+        # layer cost; halving the load nearly halves the while_loop's
+        # worst-lane round count
         cap_log2 = max(int(np.ceil(np.log2(n / 0.25 + 1))), 4)
         table = cls(capacity_log2=cap_log2)
         pad = 1 << int(np.ceil(np.log2(n + 1)))
@@ -281,11 +279,10 @@ class DeviceHashTable:
 
     def items_host(self) -> tuple[np.ndarray, np.ndarray]:
         """All (key, count) pairs, key-sorted, counts clamped at 32767."""
-        from .sortcount import to_host
         n = self.size
         dk, dc = self.items_device()
-        k = to_host(dk[:max(n, 1)])[:n]
-        c = to_host(dc[:max(n, 1)])[:n]
+        k = np.asarray(dk[:n])
+        c = np.asarray(dc[:n])
         return k, np.minimum(c, SATURATION).astype(np.int32)
 
 

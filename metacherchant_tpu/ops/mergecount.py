@@ -1,14 +1,8 @@
 """MergeCounter: streaming k-mer counter built on small sorts + bitonic merges.
 
-The StreamCounter (ops/sortcount.py) consolidates by re-sorting the whole
-(store + buffer) concatenation with `lax.sort` -- one fused graph whose size
-this class of TPU runtime cannot compile above ~1.5M lanes (BENCH_NOTES.md rig
-pathology #3), capping throughput at the degenerate small-geometry rate.
-
-MergeCounter keeps every true sort at one batch of lanes (~1M: the scale the
-rig compiles in minutes and caches) and does all *growth* in lane count with
-bitonic merges and shift-compaction (ops/bitonic.py) -- pure static-stride
-elementwise stages that compile in seconds and run at HBM speed:
+MergeCounter keeps every true sort at one batch of lanes (~1M) and does all
+*growth* in lane count with bitonic merges and shift-compaction
+(ops/bitonic.py) -- pure static-stride elementwise stages:
 
   per batch:      extract canonical keys -> ONE 1-op sort of ~1M lanes
   every R batches: 1-op bitonic merge tree over the R sorted runs
@@ -17,9 +11,9 @@ elementwise stages that compile in seconds and run at HBM speed:
   finalize:       same, on the leftover runs; counts clamp at 32767
                   (itmo:utils/NumUtils.java:21-26)
 
-Cost model per key at steady state: 1 sort lane (~7 ns) + ~(1 + store/run)
-merge-stage lane-sets (~1-2 ns each) -- several x faster than sorting each key
-inside a (store+buffer)-sized `lax.sort`, and every jit unit stays small.
+Work per key at steady state: 1 sort lane + ~(1 + store/run) merge-stage
+lane-sets, instead of sorting each key inside a (store+buffer)-sized
+`lax.sort`, and every jit unit stays small.
 
 Counting semantics preserved from the reference: canonical min(fw, rc) keying
 (itmo:utils/KmerUtils.java:59-61), saturating counts, exact-vs-hashed regimes
@@ -35,7 +29,6 @@ import jax.numpy as jnp
 
 from .kmers import SENTINEL, canonical_kmers
 from .bitonic import bitonic_merge, merge_rle_compact
-from .sortcount import fast_scalar
 
 
 @functools.partial(jax.jit, static_argnames=("k", "hasher", "cap"))
@@ -106,7 +99,7 @@ class MergeCounter:
             return
         fk, fc, nd = self._pending
         self._pending = None
-        self._live = fast_scalar(nd)
+        self._live = int(nd)
         while self._live > self.store_cap:
             self.store_cap *= 2
         m = self.store_cap

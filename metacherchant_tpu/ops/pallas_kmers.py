@@ -1,130 +1,96 @@
-"""Pallas TPU kernel: rolling canonical k-mer extraction.
+"""Pallas (Triton route) kernel: rolling canonical k-mer extraction on the GPU.
 
-The hottest loop of the framework (SURVEY §3.1: ShortKmer.shiftRight +
-addAndBound per base) as a hand-written TPU kernel. The XLA path
-(ops/kmers.exact_canonical_kmers) lowers to a lax.scan whose per-step state
-round-trips through HBM layouts; this kernel keeps the rolling fw/rc
-registers resident in VMEM as native (8, 128) tiles (8 sublanes x 128 lanes =
-1024 reads per block) and emits the canonical key per position in one pass
-over the read length.
+The XLA form (ops/kmers.exact_canonical_kmers) is a lax.scan over read
+positions whose carry is one int64 per read: on the GPU that lowers to a
+device loop of one tiny fused kernel per position. This kernel runs the whole
+rolling loop inside one launch, one thread per (read, position segment),
+with fw, rc and the valid-run length held in registers:
 
-64-bit keys are carried as (hi, lo) int32 pairs holding the unsigned bit
-patterns: this Mosaic build's int32<->uint32 element-type conversion rule
-recurses infinitely, so the kernel works entirely in int32, using
-shift_right_logical for unsigned shifts and the sign-flip trick for the one
-unsigned comparison. The caller recombines hi/lo into int64 outside the
-kernel (one cheap XLA op).
+  fw  = ((fw << 2) | c) & mask(2k)             (itmo:dna/kmers/ShortKmer.java:68-71)
+  rc  = (rc >> 2) | ((3 - c) << (2k - 2))
+  run = run + 1 if c is a base else 0
+  key = min(fw, rc) if run >= k else SENTINEL
 
-Update rules (itmo:dna/kmers/ShortKmer.java:68-71) in split form, k <= 31:
-  fw = ((fw << 2) | c) & mask(2k)
-  rc = (rc >> 2) | ((3 - c) << (2k - 2))
-Canonical key = min(fw, rc); both values fit 62 bits so unsigned and signed
-(Java long) comparisons agree.
+Both fw and rc fit 62 bits, so the signed min is the canonical key.
+
+Layout is position-major: codes arrive as (L, B) and keys leave as (L, B),
+so every step is one coalesced load and one coalesced store across a block of
+reads. Each read is cut into segments of `seg_len` positions; a segment
+first replays the k-1 positions before it (warm-up, nothing stored), which
+leaves fw, rc and run exactly as a full pass would. Segments multiply the
+number of blocks, so a 4096-read batch still spreads over the card's SMs.
 """
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .kmers import SENTINEL, _valid_window_mask
+from .kmers import SENTINEL, _i64
 
-SUBLANES = 8
-LANES = 128
-BLOCK_READS = SUBLANES * LANES  # 1024 reads per kernel instance
-
-
-def _srl(x, n: int):
-    return jax.lax.shift_right_logical(x, jnp.int32(n))
+#: reads per block (one thread each); a power of two for Triton
+BLOCK_READS = 128
+#: stored positions per segment
+SEG_LEN = 64
 
 
-def _extract_kernel(codes_ref, hi_ref, lo_ref, fw_hi_s, fw_lo_s, rc_hi_s,
-                    rc_lo_s, *, k: int, L: int):
-    total_bits = 2 * k
-    if total_bits >= 32:
-        lo_mask = jnp.int32(-1)                      # all 32 bits
-        hi_mask = jnp.int32((1 << (total_bits - 32)) - 1)
-    else:
-        lo_mask = jnp.int32((1 << total_bits) - 1)
-        hi_mask = jnp.int32(0)
-    shift_hi = total_bits - 2
-    sign = jnp.int32(-2147483648)
+def _extract_kernel(codes_ref, keys_ref, *, k: int, L: int, block_reads: int,
+                    seg_len: int):
+    c0 = pl.program_id(0) * block_reads
+    seg_start = pl.program_id(1) * seg_len
+    mask = _i64((1 << (2 * k)) - 1)
+    shift_hi = 2 * k - 2
+    cols = pl.ds(c0, block_reads)
 
-    def body(j, _):
-        fw_hi, fw_lo = fw_hi_s[:], fw_lo_s[:]
-        rc_hi, rc_lo = rc_hi_s[:], rc_lo_s[:]
-        c = codes_ref[0, j]                          # (8, 128) int32
-        cc = jnp.where(c >= 0, c, 0)
-        # fw = ((fw << 2) | c) & mask
-        nfw_hi = ((fw_hi << 2) | _srl(fw_lo, 30)) & hi_mask
-        nfw_lo = ((fw_lo << 2) | cc) & lo_mask
-        # rc = (rc >> 2) | ((3 - c) << shift_hi)
-        comp = jnp.int32(3) - cc
-        nrc_lo = _srl(rc_lo, 2) | ((rc_hi & jnp.int32(3)) << 30)
-        nrc_hi = _srl(rc_hi, 2)
-        if shift_hi >= 32:
-            nrc_hi = nrc_hi | (comp << (shift_hi - 32))
-        else:
-            nrc_lo = nrc_lo | (comp << shift_hi)
-        # canonical min: unsigned lexicographic on (hi, lo); hi < 2^30 so
-        # signed compare is fine there, lo needs the sign-flip trick
-        lo_rc_lt = (nrc_lo ^ sign) < (nfw_lo ^ sign)
-        take_rc = (nrc_hi < nfw_hi) | ((nrc_hi == nfw_hi) & lo_rc_lt)
-        hi_ref[0, j] = jnp.where(take_rc, nrc_hi, nfw_hi)
-        lo_ref[0, j] = jnp.where(take_rc, nrc_lo, nfw_lo)
-        fw_hi_s[:], fw_lo_s[:] = nfw_hi, nfw_lo
-        rc_hi_s[:], rc_lo_s[:] = nrc_hi, nrc_lo
-        return 0
+    def step(t, carry):
+        fw, rc, run = carry
+        j = seg_start - (k - 1) + t
+        inside = (j >= 0) & (j < L)
+        jc = jnp.clip(j, 0, L - 1)
+        c = plgpu.load(codes_ref.at[jc, cols])
+        c = jnp.where(inside, c, -1)
+        base = c >= 0
+        cc = jnp.where(base, c, 0).astype(jnp.int64)
+        fw = ((fw << 2) | cc) & mask
+        rc = (rc >> 2) | ((3 - cc) << shift_hi)
+        run = jnp.where(base, run + 1, 0)
+        key = jnp.where(run >= k, jnp.minimum(fw, rc), SENTINEL)
+        keep = jnp.full((block_reads,), inside & (j >= seg_start))
+        plgpu.store(keys_ref.at[jc, cols], key, mask=keep)
+        return fw, rc, run
 
-    zeros = jnp.zeros((SUBLANES, LANES), jnp.int32)
-    fw_hi_s[:] = zeros
-    fw_lo_s[:] = zeros
-    rc_hi_s[:] = zeros
-    rc_lo_s[:] = zeros
-    jax.lax.fori_loop(0, L, body, 0)
+    zeros = jnp.zeros((block_reads,), jnp.int64)
+    jax.lax.fori_loop(0, seg_len + k - 1, step,
+                      (zeros, zeros, jnp.zeros((block_reads,), jnp.int32)))
 
 
-@functools.partial(jax.jit, static_argnames=("k", "interpret"))
-def exact_canonical_kmers_pallas(codes: jax.Array, k: int,
-                                 interpret: bool = False):
-    """(B, L) int32 codes -> ((B, L) int64 canonical keys, (B, L) validity).
+@functools.partial(jax.jit, static_argnames=("k", "interpret", "block_reads",
+                                             "seg_len"))
+def exact_keys_position_major(codes: jax.Array, k: int,
+                              interpret: bool = False,
+                              block_reads: int = BLOCK_READS,
+                              seg_len: int = SEG_LEN) -> jax.Array:
+    """(B, L) int32 codes -> (L, B) int64 canonical keys, SENTINEL where the
+    window ending at that position is not all bases (k <= 31).
 
-    Drop-in replacement for ops.kmers.exact_canonical_kmers (k <= 31).
-    B must be a multiple of 1024 (the caller's standard batch sizes are).
-    """
+    keys[j, b] equals exact_canonical_kmers(codes, k)[0][b, j]."""
     B, L = codes.shape
-    assert B % BLOCK_READS == 0, "batch must be a multiple of 1024"
-    G = B // BLOCK_READS
-    # layout (G, L, 8, 128): the position axis is a major dim (dynamically
-    # indexed per loop step), the read axes land on the native sublane/lane
-    # tiling
-    tiled = codes.reshape(G, SUBLANES, LANES, L).transpose(0, 3, 1, 2)
-    kern = functools.partial(_extract_kernel, k=k, L=L)
-    spec = pl.BlockSpec((1, L, SUBLANES, LANES), lambda i: (i, 0, 0, 0))
-    # trace the kernel without x64: the session enables jax_enable_x64 for
-    # 64-bit keys, but that widens loop/iota scalars to i64 inside the kernel
-    # and this Mosaic build's i64 convert_element_type rule recurses forever
-    with jax.enable_x64(False):
-        hi, lo = pl.pallas_call(
-            kern,
-            out_shape=(
-                jax.ShapeDtypeStruct((G, L, SUBLANES, LANES), jnp.int32),
-                jax.ShapeDtypeStruct((G, L, SUBLANES, LANES), jnp.int32),
-            ),
-            grid=(G,),
-            in_specs=[spec],
-            out_specs=(spec, spec),
-            scratch_shapes=[pltpu.VMEM((SUBLANES, LANES), jnp.int32)
-                            for _ in range(4)],
-            interpret=interpret,
-        )(tiled)
-    hi = hi.transpose(0, 2, 3, 1).reshape(B, L)
-    lo = lo.transpose(0, 2, 3, 1).reshape(B, L)
-    keys = (hi.astype(jnp.int64) << 32) | (lo.astype(jnp.int64)
-                                           & jnp.int64(0xFFFFFFFF))
-    ok = _valid_window_mask(codes, k)
-    return jnp.where(ok, keys, SENTINEL), ok
+    pad = -B % block_reads
+    codes_t = jnp.pad(codes, ((0, pad), (0, 0)), constant_values=-1).T
+    Bp = B + pad
+    kern = functools.partial(_extract_kernel, k=k, L=L,
+                             block_reads=block_reads, seg_len=seg_len)
+    keys = pl.pallas_call(
+        kern,
+        out_shape=jax.ShapeDtypeStruct((L, Bp), jnp.int64),
+        grid=(Bp // block_reads, pl.cdiv(L, seg_len)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(block_reads // 32, 1)),
+        interpret=interpret,
+        name="exact_canonical_kmers",
+    )(codes_t)
+    return keys[:, :B]

@@ -6,9 +6,10 @@ global 1-D mesh over every chip in the slice, and per-host disjoint input
 file sharding so reads stream data-parallel while the k-mer table shards by
 hash over all devices (parallel/sharded_count.py).
 
-Collective layout (SURVEY §5.8): key routing and frontier exchange ride ICI
-via all_to_all inside shard_map; host-level input sharding and final result
-gathers cross DCN exactly once.
+Collective layout (SURVEY §5.8): key routing and frontier exchange are
+all_to_all collectives inside shard_map (NVLink between the cards of one
+host); host-level input sharding and final result gathers cross hosts
+exactly once.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
-"""Multi-chip environment BFS: hash-sharded table + frontier all-to-all.
+"""Multi-device environment BFS: hash-sharded table + frontier all-to-all.
 
 The SURVEY §2.3 P4 mapping: the reference's serial FIFO BFS
 (src/algo/OneSequenceCalculator.java:198-213) becomes a layer-synchronous
 frontier iteration where BOTH the coverage table and the visited set are
 sharded over the device mesh by canonical-key hash (the same owner function
 as sharded counting: mix64(key) mod n), and each layer's candidate states are
-routed to their owner shard with one ICI all_to_all:
+routed to their owner shard with one all_to_all:
 
   per layer, per shard (shard_map over "d"):
     1. expand the local frontier (4/8 neighbor codes via bit ops)

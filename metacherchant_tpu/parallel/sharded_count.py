@@ -1,6 +1,6 @@
-"""Multi-chip k-mer counting: DP over reads x hash-sharded table, ICI all-to-all.
+"""Multi-device k-mer counting: DP over reads x hash-sharded table, all-to-all.
 
-TPU-native replacement for the reference's only "distributed" mechanism -- a
+Replacement for the reference's only "distributed" mechanism -- a
 shared-memory striped hash map fed by a thread pool (SURVEY §2.3 P1/P2,
 itmo:structures/map/BigLong2ShortHashMap.java:63-89). Design:
 
@@ -11,7 +11,7 @@ itmo:structures/map/BigLong2ShortHashMap.java:63-89). Design:
     1. extract canonical keys from the local batch shard (fused scan)
     2. local dedup (sort + segment-sum) -- shrinks the wire volume to the
        number of DISTINCT local keys
-    3. bucket unique keys by owner and all_to_all over ICI
+    3. bucket unique keys by owner and all_to_all between the devices
     4. insert received (key, count) pairs into the local table shard
 - deterministic by construction: insertion order within a shard never affects
   the resulting map contents (counts are commutative sums; slot election is
@@ -294,10 +294,9 @@ class ShardedCounter:
             self.add_codes(empty)
 
     def items_host(self) -> tuple[np.ndarray, np.ndarray]:
-        from ..ops.sortcount import to_host
         self.drain()
-        tk = to_host(self.tkeys).ravel()
-        tc = to_host(self.tcnts).ravel()
+        tk = np.asarray(self.tkeys).ravel()
+        tc = np.asarray(self.tcnts).ravel()
         live = tk != SENTINEL
         keys, cnts = tk[live], tc[live]
         order = np.argsort(keys, kind="stable")

@@ -44,7 +44,7 @@ def _registry() -> dict[str, type[Tool]]:
 
 DEFAULT_TOOL = "environment-finder"
 
-_HEADER = """metacherchant-tpu: TPU-native genomic environment engine
+_HEADER = """metacherchant-tpu: JAX genomic environment engine
 Usage: metacherchant [-t <tool>] [tool options]
 """
 

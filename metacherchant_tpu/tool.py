@@ -108,8 +108,8 @@ class Tool:
             "start", str, description="first stage to run"))
         self.finish_stage = self.add_parameter(Parameter(
             "finish", str, description="last stage to run"))
-        # tracing/profiling (the reference has none, SURVEY §5.1; the TPU
-        # equivalent is a jax profiler trace viewable in xprof/tensorboard)
+        # tracing/profiling (the reference has none, SURVEY §5.1): a jax
+        # profiler trace viewable in xprof/tensorboard
         self.profile_dir = self.add_parameter(Parameter(
             "profile", str,
             description="write a jax profiler trace of the run to this dir"))

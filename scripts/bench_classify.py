@@ -1,19 +1,17 @@
-"""End-to-end reads-classifier throughput on a >=1M-read synthetic
-(VERDICT r3 #6 'Done' criterion; results recorded in BENCH_NOTES.md).
+"""End-to-end reads-classifier throughput on a >=1M-read synthetic.
 
 Builds a kmers.bin graph from a 400kb genome, synthesizes N paired reads
 (half in-graph, half random so every bin gets traffic), and times the FULL
 CLI tool (load graph -> stream pairs -> vectorized find_reads -> vectorized
 bin routing -> vectorized blob FASTQ writes).
 
-Usage: MC_PLATFORM=cpu python scripts/bench_classify.py [n_pairs]
+Usage: JAX_PLATFORMS=cpu python scripts/bench_classify.py [n_pairs]
 """
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("MC_PLATFORM", "cpu")
 
 import numpy as np
 

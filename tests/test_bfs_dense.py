@@ -120,10 +120,10 @@ def test_dense_rejects_large_k():
 
 
 def test_join_lane_budget_covers_huge_maps():
-    """Maps at/above 2^23 padded keys must get a budget ABOVE the store
-    (8*Np would cap at 2^24 = Np for Np=2^24 and previously raised)."""
+    """Every map gets a budget ABOVE the store, also at and above the lane
+    cap (where 8*Np would be capped to Np or below)."""
     from metacherchant_tpu.ops.bfs_dense import _join_lane_budget
-    for np_lanes in (1 << 10, 1 << 19, 1 << 21, 1 << 23, 1 << 24, 1 << 25):
+    for np_lanes in (1 << 10, 1 << 19, 1 << 21, 1 << 25, 1 << 28, 1 << 29):
         total = _join_lane_budget(np_lanes)
         assert total > np_lanes, np_lanes
         assert total <= max(8 * np_lanes, 2 * np_lanes)

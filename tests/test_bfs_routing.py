@@ -19,10 +19,8 @@ def test_force_flags(monkeypatch):
 
 
 def test_auto_route_demoted_by_default(monkeypatch):
-    """Round-5 demotion: the measured sweep (scripts/profile_dense_bfs.py)
-    found NO workload where the device engines beat the host C++ FIFO --
-    including the 500K-seed flood regime round 4's threshold extrapolated
-    to (host 1.41 s vs dense 6.56 s). Without an explicit
+    """The device engines are opt-in: no regime where they beat the host
+    C++ FIFO has been measured on the GPU. Without an explicit
     MC_DEVICE_BFS_MIN_SEEDS opt-in, every shape routes host."""
     monkeypatch.delenv("MC_DEVICE_BFS", raising=False)
     monkeypatch.delenv("MC_DEVICE_BFS_MIN_SEEDS", raising=False)

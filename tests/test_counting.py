@@ -327,35 +327,37 @@ def test_stream_counter_merge_split_equals_oracle(bufcap, storecap):
     assert np.array_equal(got.counts, want.counts)
 
 
-def test_stream_counter_auto_routes_merge_above_ceiling(monkeypatch):
-    """'auto' picks merge-split when buffer+store exceeds the sort2 lane
-    ceiling, and the two modes agree bit-for-bit."""
+def test_stream_counter_auto_routes_merge_above_ceiling():
+    """The default consolidation (merge-split; there is no lane ceiling or
+    'auto' mode any more) and the sort2 pipeline agree bit-for-bit across
+    repeated consolidations."""
     import jax.numpy as jnp
     from metacherchant_tpu.ops import sortcount
 
-    monkeypatch.setattr(sortcount.StreamCounter, "SORT2_LANE_CEILING", 2048)
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 4, size=(64, 40)).astype(np.int32)
     k = 15
 
     results = []
-    for mode in ("auto", "sort2"):
-        sc = sortcount.StreamCounter(buffer_cap=2048, store_cap=1024,
-                                     mode=mode)
+    for mode in (None, "sort2"):
+        kw = {} if mode is None else {"mode": mode}
+        sc = sortcount.StreamCounter(buffer_cap=2048, store_cap=1024, **kw)
+        assert sc.mode == (mode or "merge")
         for i in range(0, 64, 8):
             sc.add_codes(jnp.asarray(codes[i:i + 8]), k, None)
         results.append(sc.finalize())
     (k1, c1), (k2, c2) = results
-    assert np.array_equal(k1, k2) and np.array_equal(c1, c2)
+    assert k1.size and np.array_equal(k1, k2) and np.array_equal(c1, c2)
 
 
 def test_stream_counter_mode_validated():
     """Invalid mode strings fail loudly at construction (ADVICE r3: a typo
     silently selected the sort2 path, which can hang compilation)."""
     from metacherchant_tpu.ops.sortcount import StreamCounter
-    with pytest.raises(ValueError, match="mode"):
-        StreamCounter(buffer_cap=1024, store_cap=256, mode="Merge")
-    for ok in ("auto", "sort2", "merge"):
+    for bad in ("Merge", "auto"):
+        with pytest.raises(ValueError, match="mode"):
+            StreamCounter(buffer_cap=1024, store_cap=256, mode=bad)
+    for ok in ("sort2", "merge"):
         StreamCounter(buffer_cap=1024, store_cap=256, mode=ok)
 
 

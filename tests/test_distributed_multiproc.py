@@ -36,7 +36,7 @@ assert mine == want, (pid, mine)
 import numpy as np
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 devs = np.array(jax.devices())  # global: both processes' cpu devices
 mesh = Mesh(devs, ("d",))
